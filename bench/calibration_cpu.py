@@ -9,10 +9,10 @@ re-draws), identical config (5000 burn / thin 5 / 1000 draws, tf_order=0,
 positivity constraints) — but with the CPU reference-pattern sampler
 (quality_cpu.ConstrainedPoissonCPU, the joint per-column GASS kernel of
 reference factor.py:894-1017). Records true-rate coverage at 50/75/90/95 +
-RMSE next to bench/calibration.json's TPU cells:
+RMSE next to the library's calibration cells (bench/calibration.py):
 
   * k=3 cell — does the reference algorithm reach the same coverage as the
-    TPU blocked sampler?
+    library's blocked sampler?
   * k=2 cell — does the reference algorithm undercover identically under
     rank-3-truth misspecification (the round-2 claim)?
 

@@ -1,7 +1,7 @@
 """Doseresponse quality anchor (VERDICT round-3 item 5): the FULL
 fit.py pipeline — EB likelihood, NMF-with-features warm start, EP
 centering, U-feature GASS callback, Row_constraints, PAV posterior —
-run head-to-head on sim.py data through (a) the TPU-native library and
+run head-to-head on sim.py data through (a) this library and
 (b) the CPU reference-algorithm engine (quality_cpu.ConstrainedBlackBoxCPU),
 with identical data, warm start, EP factor, holdout, and likelihood
 arithmetic. Reports the MAE/RMSE/NLL table of reference fit.py:377-421
@@ -77,7 +77,7 @@ def main():
     ap.add_argument("--nsamples", type=int, default=2000)
     ap.add_argument("--nholdout", type=int, default=10)
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--arms", nargs="+", default=["tpu", "cpu"])
+    ap.add_argument("--arms", nargs="+", default=["library", "cpu"])
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "doseresponse_cpu.json"))
     args = ap.parse_args()
@@ -140,7 +140,7 @@ def main():
                       f, indent=1, default=str)
 
     # ---- library arm (the full fit.py machinery) ----
-    if "tpu" in args.arms:
+    if "library" in args.arms:
         ll = drfit.make_loglikelihood(likelihood, with_features=True)
         from functionalmf_tpu import (
             ConstrainedNonconjugateBayesianTensorFiltering)
@@ -163,7 +163,7 @@ def main():
         Vs_proj = np.array([[factor_pav(W_i, V_ij) for V_ij in V_i]
                             for W_i, V_i in zip(Ws, Vs)])
         Mu_proj = np.einsum("znk,zmtk->znmt", Ws, Vs_proj)
-        row = metrics("tpu", Mu_hat.mean(0), Mu_proj.mean(0), Y, Y_full,
+        row = metrics("library", Mu_hat.mean(0), Mu_proj.mean(0), Y, Y_full,
                       held, effects, likelihood)
         row["wall_min"] = round(wall / 60, 1)
         record(row)

@@ -1,12 +1,12 @@
-"""Multi-host (DCN) dryrun: 2 processes x 4 virtual CPU devices each
+"""Multi-host dryrun: 2 processes x 4 virtual CPU devices each
 (VERDICT round-2 item 4).
 
 Proves the mesh/sharding code does not assume a single process: two
-jax.distributed-initialized controllers (DCN = localhost) build ONE global
+jax.distributed-initialized controllers (coordinator on localhost) build ONE global
 (dp=2, mp=4) mesh whose dp axis spans the process boundary — chains ride
-"DCN", rows/columns ride the intra-host "ICI" — and run several jitted
+the inter-process link, rows/columns the devices within a process — and run several jitted
 Gibbs sweeps of the flagship constrained model with globally sharded state.
-This is the TPU-native analog of the reference's multiprocessing fan-out
+This is the mesh analog of the reference's multiprocessing fan-out
 (reference functionalmf/factor.py:929-1000) at the multi-HOST scale the
 reference never had.
 
@@ -58,8 +58,7 @@ def _worker(process_id: int, port: int) -> None:
                                nembeds=2, gass_ngrid=16, nchains=nchains)
     model.mesh = mesh
     pdata = model.prepare_data(np.asarray(Y))
-    sweep = model._make_sweep()
-    vsweep = jax.vmap(sweep, in_axes=(0, None, 0))
+    vsweep = model._batched_sweep()
 
     shardings = model.state_shardings()
     # every process holds the same host state (same seed); materialize it

@@ -1,13 +1,13 @@
 """Flu-trends anchor: the reference Gaussian-BTF algorithm on CPU, run on
 the REAL Google-Flu state split (VERDICT round-2 item 2).
 
-The TPU benchmark (apps/flutrends/benchmark.py) reports 79/77% posterior
+The library's benchmark (apps/flutrends/benchmark.py) reports 79/77% posterior
 predictive coverage against a nominal 95%, attributed to the shared-nu2
 model family. This run executes the same protocol with the *reference*
 algorithm (reference flutrends/benchmark.py:16-77: Gaussian BTF, tf_order=2,
 nburn=100/nthin=100/nsamples=100, predictive bands from
 N(Mu_draw, nu2_draw)) in plain numpy — if it lands at the same coverage,
-the shortfall is the model family's, not the TPU implementation's.
+the shortfall is the model family's, not the library implementation's.
 
 Usage: python bench/flutrends_cpu.py
 Writes bench/flutrends_cpu.json.
@@ -55,7 +55,7 @@ def main():
                                                   "flutrends_cpu.json"))
     args = ap.parse_args()
 
-    # identical split to the TPU benchmark (create() is seed-deterministic)
+    # identical split to the library benchmark (create() is seed-deterministic)
     from functionalmf_tpu.apps.flutrends.create_datasets import create
     tmp = tempfile.mkdtemp()
     data, train, _ = create("/root/reference/flutrends/flu_US.mat", tmp)

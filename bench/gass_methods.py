@@ -7,7 +7,7 @@ projection. Prints the reference's two tables — MSE x 10^3 and 90%
 credible-interval coverage, mean +/- stderr over trials per sample size
 (gass.py:317-324).
 
-TPU-native deltas: the reference runs trials serially in Python with numpy
+Design deltas: the reference runs trials serially in Python with numpy
 samplers; here all trials advance together as one vmapped `lax.scan` of the
 five kernels, so a 100-trial x 20k-step benchmark is a single device
 program. Truth/rejection-sampling setup and PAV projection stay host-side

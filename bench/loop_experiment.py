@@ -1,7 +1,7 @@
 """Decisive experiment for the chunk-loop slowdown (round-2 perf thread).
 
 Observed: a Gibbs sweep dispatched back-to-back via jit(vsweep) runs ~10x
-faster per sweep on the TPU than the SAME sweep iterated inside one
+faster per sweep on the round-2 accelerator than the SAME sweep iterated inside one
 compiled lax.fori_loop/scan chunk (the production run_gibbs path,
 models/base.py:_get_compiled_chunks). This script pins down which
 construct pays the penalty:
@@ -68,8 +68,7 @@ def main():
         NR, NC, ND, bench.poisson_loglik, Constraints, **kw)
 
     pdata = model.prepare_data(Y)
-    sweep = model._make_sweep()
-    vsweep = jax.vmap(sweep, in_axes=(0, None, 0))
+    vsweep = model._batched_sweep()
     base_key = jax.random.PRNGKey(7)
     nchains = model.nchains
 

@@ -46,8 +46,7 @@ def _body():
         mesh = make_mesh(n_dp=1, n_mp=n_mp, devices=jax.devices()[:n_mp])
         model.mesh = mesh
         pdata = model.prepare_data(Y)
-        sweep = model._make_sweep()
-        vsweep = jax.vmap(sweep, in_axes=(0, None, 0))
+        vsweep = model._batched_sweep()
         state = model._shard_state(model.state)
         shardings = model.state_shardings()
         keys = jax.vmap(jax.random.fold_in, (None, 0))(

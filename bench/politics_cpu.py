@@ -2,12 +2,12 @@
 convergence on the REAL pair-holdout split (VERDICT round-2 item 1).
 
 Reproduces the protocol of /root/reference/politics/benchmark.py:60-204 with
-the same warm start the TPU benchmark uses (apps/politics/benchmark.py —
+the same warm start the library benchmark uses (apps/politics/benchmark.py —
 tensor_nmf of the training tensor; the PGDS->NMF chain needs the optional
 `apf` package, absent in this image, on BOTH sides), the same EP centering
 (ep_from_nmf), the same config (10000 burn / thin 10 / 1000 draws), and the
 same in/out-of-sample RMSE / MAE / Poisson-LL table — so the only variable
-between bench/politics_cpu.json and the TPU run's metrics is the sampler
+between bench/politics_cpu.json and the library run's metrics is the sampler
 implementation.
 
 Usage: python bench/politics_cpu.py [--nburn 10000 --nthin 10 --nsamples 1000]
@@ -65,7 +65,7 @@ def main():
     nrows, ncols, ndepth = Y.shape
     nembeds = 5
 
-    # identical warm start to the TPU benchmark (apps/politics/benchmark.py)
+    # identical warm start to the library benchmark (apps/politics/benchmark.py)
     rng = np.random.default_rng(args.seed)
     from functionalmf_tpu.utils import tensor_nmf
     from functionalmf_tpu.apps.politics.benchmark import ep_from_nmf

@@ -2,7 +2,7 @@
 
 Reproduces the reference's PGDS baseline fit (politics/benchmark.py:74-81)
 with the native sampler (functionalmf_tpu/models/pgds.py) on CPU, on the
-same seed-42 pair-holdout split as bench/politics_tpu*/metrics.json, and
+same seed-42 pair-holdout split as apps/politics/benchmark.py, and
 reports the reference's in/out RMSE/MAE/LL row (benchmark.py:163-204).
 
 Writes bench/politics_pgds.json and the posterior-mean rate tensor

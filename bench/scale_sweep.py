@@ -1,8 +1,8 @@
-"""Throughput vs tensor size (beyond-parity: the TPU design's headroom).
+"""Throughput vs tensor size (beyond-parity: the batched design's headroom).
 
-The headline GDELT shape (19x19x228) leaves the chip latency-bound (FLOP
-util ~1%, bench/profile.json): the per-sweep cost is per-op overhead, not
-compute, so batched work should be nearly free until the MXU fills. This
+The headline GDELT shape (19x19x228) leaves the device latency-bound: the
+per-sweep cost is per-op overhead, not compute, so batched work should be
+nearly free until the device fills. This
 bench measures single-chain sweeps/s of the constrained-Poisson model
 (k=5, ngrid=100, positivity constraints) at 1x/2x/4x rows+cols on the
 bench chip, for both kernels, plus — as a *generous lower bound* for the
@@ -45,7 +45,7 @@ def make_data(nrows, ncols, ndepth, seed=42):
     return Y, W0, V0
 
 
-def run_tpu(nsweeps):
+def run_device(nsweeps):
     import bench as headline  # repo-root bench.py: likelihoods
     from functionalmf_tpu import ConstrainedNonconjugateBayesianTensorFiltering
     rows = {}
@@ -68,7 +68,7 @@ def run_tpu(nsweeps):
             rec[kernel] = round(nsweeps / (time.time() - t0), 2)
         rows[f"{n}x{m}x{T}"] = rec
         print(json.dumps({f"{n}x{m}x{T}": rec}), flush=True)
-    return {"tpu_sweeps_per_sec": rows}
+    return {"device_sweeps_per_sec": rows}
 
 
 def run_cpu(nsweeps):
@@ -96,7 +96,7 @@ def run_cpu(nsweeps):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true",
-                    help="measure the CPU arm instead of the TPU arm")
+                    help="measure the CPU arm instead of the device arm")
     ap.add_argument("--nsweeps", type=int, default=None)
     args = ap.parse_args()
     cur = {}
@@ -106,7 +106,7 @@ def main():
     if args.cpu:
         cur.update(run_cpu(args.nsweeps or 6))
     else:
-        cur.update(run_tpu(args.nsweeps or 100))
+        cur.update(run_device(args.nsweeps or 100))
     with open(OUT, "w") as f:
         json.dump(cur, f, indent=2)
     print(json.dumps(cur))

@@ -9,7 +9,7 @@ bench/scaling.json.
 
 Virtual CPU devices share the same host cores, so this validates that the
 sharded program compiles, executes, and does not regress with mesh size —
-ICI-bandwidth speedups can only be observed on real multi-chip hardware.
+interconnect speedups can only be observed on real multi-device hardware.
 Replaces the role of the reference's nthreads fan-out benchmark
 (factor.py:956-1000).
 """

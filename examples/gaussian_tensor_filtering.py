@@ -1,7 +1,7 @@
 """Gaussian functional matrix factorization example.
 
 Mirrors the reference examples/gaussian_tensor_filtering.py:1-107 against
-the TPU-native API: synthetic wiggly-with-jumps truth, 11x12x20 tensor,
+the JAX API: synthetic wiggly-with-jumps truth, 11x12x20 tensor,
 hold out the [:3,:3] block, run Gibbs, report held-out error and coverage,
 optionally plot credible bands.
 """

@@ -1,6 +1,6 @@
-"""functionalmf_tpu: TPU-native Bayesian Tensor Filtering.
+"""functionalmf_tpu: Bayesian Tensor Filtering on accelerators with JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference `functionalmf` library (Tansey, Tosh & Blei, *Bayesian Tensor
 Filtering*, AoAS 2021): Gibbs inference for functional matrix factorization
 Y[i, j, t] ~ f(<W_i, V_{j,t}>) under trend-filtering/horseshoe priors, with

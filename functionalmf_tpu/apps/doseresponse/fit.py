@@ -1,6 +1,6 @@
 """Bayesian tensor filtering for dose-response modeling (CLI).
 
-TPU-native re-design of the reference doseresponse/fit.py:1-491:
+JAX re-design of the reference doseresponse/fit.py:1-491:
 empirical-Bayes likelihood -> NMF / monotone-NMF baselines -> constrained
 BTF with [0,1] + softened-monotonicity constraints, EP centering, optional
 binary row features with a U embedding resampled by GASS inside a per-step
@@ -102,8 +102,8 @@ def _make_u_all(X):
 
 
 def make_u_step(args, X, U_samples):
-    """Host-callback flavor of the U step (reference contract; one RPC per
-    sweep). Kept for non-traceable user hooks; the compiled default is
+    """Host-callback flavor of the U step (reference contract; one host
+    round trip per sweep). Kept for non-traceable user hooks; the compiled default is
     make_traced_u_step."""
     u_all = jax.jit(_make_u_all(X))
 

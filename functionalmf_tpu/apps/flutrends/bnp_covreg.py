@@ -1,6 +1,6 @@
 """Bayesian nonparametric covariance regression (Fox & Dunson, JMLR 2015).
 
-TPU-native reimplementation of the reference's vendored MATLAB baseline
+JAX reimplementation of the reference's vendored MATLAB baseline
 (flutrends/BNP_covreg_varinds.m:1-616, driven by
 flutrends/runstuff_varinds_flu_states.m:1-204): the comparison arm of the
 Google Flu Trends benchmark (flutrends/benchmark.py:146-152). The model is
@@ -24,7 +24,7 @@ Deliberate deviations from the MATLAB (documented, not bugs):
   each conditional N(Sig*h, Sig) with Sig = (invK + diag(A))^{-1} is
   sampled by the noise-aware pathwise (Matheron) rule through
   B = S K S + I (S = sqrt(A)), which is well-conditioned by
-  construction, so the whole sampler runs in float32 on the MXU.
+  construction, so the whole sampler runs in float32 on the device.
   Distributional equivalence is tested against the dense float64
   information form (tests/test_bnp_covreg.py).
 - **Sane missingness mask.** The MATLAB runner's start_dates loop

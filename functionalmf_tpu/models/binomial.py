@@ -1,6 +1,6 @@
 """Binomial / Bernoulli Bayesian Tensor Filtering via Polya-Gamma augmentation.
 
-TPU-native re-design of BinomialBayesianTensorFiltering
+JAX re-design of BinomialBayesianTensorFiltering
 (reference functionalmf/factor.py:425-460). The PG draws — previously a
 sequential C++ stream (`pgdrawv`, factor.py:458-460) — become one
 vectorized, counter-based `polya_gamma` call over the whole tensor, and the

@@ -1,6 +1,6 @@
 """Gaussian Bayesian Tensor Filtering: the conditionally conjugate model.
 
-TPU-native re-design of GaussianBayesianTensorFiltering
+JAX re-design of GaussianBayesianTensorFiltering
 (reference functionalmf/factor.py:286-423). The reference's two hot Python
 loops — per-row dense-Cholesky W updates (factor.py:333-362) and per-column
 sparse-CHOLMOD V updates (factor.py:378-409) — become two *batched* dense
@@ -115,7 +115,7 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         PG models); wy[i,j,t] = w8 * target so that mu_part = X^T wy.
 
         Full-f32 matmuls (_mm_f32): the Gram/mean products feed a Cholesky
-        draw; the default reduced-precision MXU pass biases the conditional
+        draw; a reduced-precision (bf16/TF32) pass biases the conditional
         (same failure class as the constrained sampler's HIGHEST einsums,
         and the chip-only flu k=10 excursions — see ops/banded.py:_mm_f32).
         """
@@ -155,9 +155,8 @@ class GaussianBayesianTensorFiltering(BayesianTensorFiltering):
         bands = build_v_bands(DtLD, G, penalty_half_bandwidth(self.tf_order))
         mu_part = jnp.einsum("ijt,ia->jta", wy, W)                # (m, T, k)
         # super-block retiling: the scan runs T/B dense steps instead of
-        # T tiny ones (TPU scans are latency-bound in step count); B=8 is
-        # the measured sweet spot at GDELT shape (batched Cholesky cost
-        # grows faster than linearly in the superblock size)
+        # T tiny ones (scans are latency-bound in step count, and batched
+        # Cholesky cost grows faster than linearly in the superblock size)
         Vnew, repaired, gersh = sample_mvn_block_banded_retiled(
             key, bands, mu_part=mu_part, B=8, equilibrate=True,
             return_repairs=True)

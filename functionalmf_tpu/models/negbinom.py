@@ -1,6 +1,6 @@
 """Negative-Binomial Bayesian Tensor Filtering.
 
-TPU-native re-design of NegativeBinomialBayesianTensorFiltering
+JAX re-design of NegativeBinomialBayesianTensorFiltering
 (reference functionalmf/factor.py:463-563): NB modeled as a PG-augmented
 binomial with pseudo-count N = sum_reps(Y + R), where the dispersion R is
 sampled by `nmetropolis` vectorized random-walk Metropolis-Hastings steps in

@@ -1,6 +1,6 @@
 """Unconstrained black-box-likelihood BTF via elliptical slice sampling.
 
-TPU-native re-design of NonconjugateBayesianTensorFiltering
+JAX re-design of NonconjugateBayesianTensorFiltering
 (reference functionalmf/factor.py:567-612): joint ESS updates of the packed
 W and the packed V under the trend-filtering prior, with a user-supplied
 jax-traceable ``loglikelihood(W, V, data) -> scalar``.

@@ -1,6 +1,6 @@
 """Block-banded Cholesky factorization, solves, and MVN sampling.
 
-TPU-native replacement for CHOLMOD's sparse Cholesky on the BTF V-update
+JAX replacement for CHOLMOD's sparse Cholesky on the BTF V-update
 precision (reference fast_mvn.py:36-47, factor.py:364-409): in time-major
 ordering x[(t, a)] = V[t, a], the posterior precision
 
@@ -65,19 +65,22 @@ def chain_reduced_pred(pred):
 
 
 def _mm_f32(fn):
-    """Trace every matmul inside `fn` at full float32 MXU precision.
+    """Trace every matmul inside `fn` at full float32 precision.
 
-    The TPU's default reduced-precision matmul pass (bf16 operands) is
-    acceptable for likelihood evaluation but NOT inside a Cholesky at
-    horseshoe dynamic range (1e-6..1e6 diagonal spread): a ~0.4% relative
-    error in a Schur-complement product routinely flips near-singular
-    pivots indefinite, forcing the Gershgorin repair onto a *materially
-    perturbed* conditional. Observed end-to-end on the flu-trends
-    benchmark at k=10: a handful of retained draws with |Mu| excursions
-    ~100x the posterior spread, wrecking the posterior mean — chip-only
-    (CPU f32 runs of the same chain are clean), gone at full precision.
-    The reference factorizes in f64 CHOLMOD (fast_mvn.py:36-47); full-f32
-    MXU passes are the TPU-native equivalent. CPU/GPU: no-op."""
+    An accelerator's default f32 matmul may run in reduced precision: on
+    an NVIDIA GPU, XLA may use TF32 tensor-core passes (10-bit mantissa,
+    ~1e-3 relative error); other accelerators use bf16 passes. That is
+    NOT acceptable inside a Cholesky at horseshoe dynamic range
+    (1e-6..1e6 diagonal spread): a ~1e-3 relative error in a
+    Schur-complement product routinely flips near-singular pivots
+    indefinite, forcing the Gershgorin repair onto a *materially
+    perturbed* conditional — observed end to end on the flu-trends
+    benchmark at k=10 as retained draws with |Mu| excursions ~100x the
+    posterior spread, absent from CPU f32 runs of the same chain. The
+    reference factorizes in f64 CHOLMOD (fast_mvn.py:36-47). The sweep is
+    already traced at float32 (models/base.py:_batched_sweep); this
+    decorator keeps the same guarantee for callers outside the sweep.
+    On the CPU backend it changes nothing."""
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
         with jax.default_matmul_precision("float32"):
@@ -148,7 +151,7 @@ def slice_bands(bands, start: int, size: int):
 
 def block_to_dense(bands, start: int, size: int):
     """Dense (..., size*k, size*k) principal submatrix for time block
-    [start, start+size). On TPU, small-block conditionals are faster as one
+    [start, start+size). Small-block conditionals are cheaper as one
     batched dense Cholesky than as sequential banded scans (scan-step
     latency dominates at small T)."""
     *batch, T, p1, k, _ = bands.shape
@@ -382,9 +385,9 @@ def retile_bands(bands, B: int):
 
     Returns (bands2, T2): a block-TRIDIAGONAL system (half-bandwidth 1) with
     (B*k x B*k) dense blocks, zero-padded to T2 = ceil(T/B) super-rows
-    (padding gets identity diagonals). On TPU the factor/solve scans are
+    (padding gets identity diagonals). The factor/solve scans are
     latency-bound in the number of sequential steps, so trading T tiny steps
-    for T/B dense MXU-sized steps is a large win at equal FLOP order.
+    for T/B dense steps is a large win at equal FLOP order.
     Requires B >= bandwidth p.
     """
     *batch, T, p1, k, _ = bands.shape
@@ -442,9 +445,8 @@ def sample_mvn_block_banded_retiled(key, bands, mu_part=None, B: int = 32,
     (models/gaussian.py). With equilibrate=False the jitter is scaled by
     the mean diagonal magnitude so it cannot swamp small-scaled bands.
 
-    No in-kernel retries (lax.cond executes both branches on TPU; a retry
-    ladder would cost a full extra factor scan per call): indefinite pivots
-    are repaired locally inside the factor scan (_chol_pivot_guarded),
+    No in-kernel retry ladder (a retry would cost a full extra factor scan
+    per call whenever it fires): indefinite pivots are repaired locally inside the factor scan (_chol_pivot_guarded),
     which always yields a finite factor. Those repairs are counted —
     pass return_repairs=True for (x, repaired, gershgorin) per batch
     element; models fold the counts into run-health reporting.

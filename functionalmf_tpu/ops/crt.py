@@ -3,7 +3,7 @@
 These are the augmentation workhorses of allocation-based Poisson
 factorization samplers (the PGDS baseline, Schein/Wallach/Zhou NeurIPS
 2016; the reference consumed them through the external Cython `apf`
-package, reference functionalmf/pgds.py:17). TPU-native design: static
+package, reference functionalmf/pgds.py:17). Design: static
 shapes, counter-based keys, bounded exact scans with validated tail
 approximations — the same discipline as ops/polyagamma.py.
 

@@ -2,7 +2,7 @@
 
 `jax.random.gamma` uses a rejection `while_loop` that iterates until the
 *slowest* lane accepts; over ~1e6 lanes the max iteration count is ~2-3x
-the mean, and on TPU each iteration re-runs the whole tensor. For the
+the mean, and each iteration re-runs the whole tensor. For the
 Polya-Gamma augmentation (ops/polyagamma.py) — the hot op of the Binomial /
 Negative-Binomial sweeps — we instead run a *fixed* number of
 Marsaglia-Tsang (2000) rounds with acceptance masking. With per-round

@@ -1,11 +1,10 @@
 """Batched multivariate-normal samplers on precision / covariance form.
 
-TPU-native replacement for the reference's CHOLMOD-backed fast_mvn module
+JAX replacement for the reference's CHOLMOD-backed fast_mvn module
 (functionalmf/fast_mvn.py:10-179). Design deltas:
 
 * All paths are **dense and batched**: a (..., D, D) precision/covariance
-  stack maps to one `jax.lax.linalg.cholesky` + batched triangular solves,
-  which XLA tiles onto the MXU. The reference instead crossed into C
+  stack maps to one `jax.lax.linalg.cholesky` + batched triangular solves. The reference instead crossed into C
   (CHOLMOD) once per matrix inside Python loops.
 * The reference's ``force_psd`` try/except retry loop (fast_mvn.py:30-72)
   becomes a fixed number of *unrolled* jitter attempts with NaN detection:

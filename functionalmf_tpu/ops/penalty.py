@@ -1,11 +1,11 @@
 """Trend-filtering penalty matrix builders.
 
-TPU-native reimplementation of the penalty-construction utilities in the
+JAX reimplementation of the penalty-construction utilities in the
 reference library (functionalmf/utils.py:5-98). Penalty matrices are built
 once at model-construction time on the host (numpy) and then used as dense
 jnp constants inside jitted sweeps: ``ndepth`` is small relative to device
 memory and a dense (nD x T) matrix lets XLA fuse the quadratic-form products
-``Delta^T diag(w) Delta`` into a single batched matmul on the MXU, instead of
+``Delta^T diag(w) Delta`` into a single batched matmul, instead of
 the reference's scipy.sparse CSC products.
 
 The *banded structure* of Delta (row support <= tf_order + 2) is still

@@ -1,6 +1,6 @@
 """Pure-JAX Polya-Gamma sampler.
 
-TPU-native replacement for the reference's native pypolyagamma dependency
+JAX replacement for the reference's native pypolyagamma dependency
 (C++/Cython, used at functionalmf/factor.py:431-432, 458-460 for the
 Binomial / Negative-Binomial augmentation). The reference draws from a
 single seeded sequential-stream RNG (`PyPolyaGamma(seed)`); here every draw
@@ -21,8 +21,8 @@ variance is short by the tail variance, which decays like sum_{k>K} k^-4 —
 ~1e-4 relative at the default K = num_terms = 16 (KS-validated against an
 exact Devroye sampler in tests/pg_exact.py), < 3e-7 at K=64 for callers
 that want the slack below f32 noise. This family of truncation samplers
-has data-independent shapes and one batched Gamma draw — exactly what the
-TPU wants — unlike Devroye's rejection sampler with data-dependent loop
+has data-independent shapes and one batched Gamma draw — exactly what
+batched device code wants — unlike Devroye's rejection sampler with data-dependent loop
 lengths.
 """
 from __future__ import annotations
@@ -38,8 +38,8 @@ _TWO_PI_SQ = 2.0 * jnp.pi**2
 def _tanh_half_over(c):
     """tanh(c/2) / c with the c -> 0 limit (= 1/2) handled.
 
-    The series branch is wide (|c/2| < 0.05): TPU transcendentals carry a
-    few hundred ulp of error, so a tight cutoff leaves a band where the
+    The series branch is wide (|c/2| < 0.05): accelerator transcendentals
+    can carry a few hundred ulp of error, so a tight cutoff leaves a band where the
     direct ratio is much less accurate than the series.
     """
     x = 0.5 * c
@@ -60,8 +60,8 @@ def pg_var(b, c):
     """Var[PG(b, c)] = b / (4 c^3) (sinh(c) - c) sech^2(c / 2).
 
     sinh(c) - c cancels catastrophically for small |c| — in f32 the naive
-    form loses ALL significant bits below |c| ~ 0.01 and on TPU (whose
-    transcendentals carry a few hundred ulp of error) it can even go
+    form loses ALL significant bits below |c| ~ 0.01 and with
+    transcendentals that carry a few hundred ulp of error it can even go
     NEGATIVE, which poisoned the Binomial/NegBinom normal-approximation
     branch with sqrt(<0) = NaN and silently froze whole chains behind the
     nan_guard. Use the series (sinh c - c)/c^3 = (1/6)(1 + c^2/20 +
@@ -89,7 +89,7 @@ def polya_gamma(key, b, c, num_terms: int = 16, use_mt: bool = True,
     num_terms=16 with the tail-mean correction leaves a relative variance
     deficit of ~1e-4 (the discarded terms' variance decays as k^-4) —
     far below MC noise. use_mt selects the fixed-round Marsaglia-Tsang
-    gamma sampler (ops/gamma.py), much faster on TPU than
+    gamma sampler (ops/gamma.py), a fixed amount of work instead of
     jax.random.gamma's all-lanes-until-converged while_loop.
 
     Cells with b >= `normal_approx_above` use the moment-matched normal

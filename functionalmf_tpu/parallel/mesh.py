@@ -1,7 +1,7 @@
 """Device-mesh sharding for BTF Gibbs state.
 
 The reference's "distributed backend" is a POSIX shared-memory segment plus
-a process pool (factor.py:929-1000). The TPU-native equivalent is a
+a process pool (factor.py:929-1000). The JAX equivalent is a
 `jax.sharding.Mesh` with two axes:
 
   * ``dp``  — chains (pure data parallelism; the genlasso.py:38 TODO)
@@ -9,7 +9,7 @@ a process pool (factor.py:929-1000). The TPU-native equivalent is a
     fan-out, factor.py:984-1000): W-row GASS/ridge updates shard over rows,
     V-column updates shard over columns. Cross-shard terms (the lam2 rate
     reduction, the opposite-embedding constraint assembly) lower to XLA
-    collectives over ICI automatically under jit.
+    collectives (NCCL on GPUs) automatically under jit.
 
 Partition specs are **explicit per model**: every model enumerates its own
 state keys in ``state_partition_specs()`` (models/base.py and subclasses) —
@@ -53,8 +53,8 @@ def init_distributed(coordinator_address: str, num_processes: int,
     factor.py:984-1000, rides jax.distributed over DCN — no custom
     transport, XLA collectives handle the dense regular updates).
 
-    Call before any backend touch, once per process. On TPU pods the
-    coordinator address is provisioned by the launcher; on CPU test
+    Call before any backend touch, once per process, with an explicit
+    coordinator address, process count and process id; on CPU test
     fixtures (bench/dryrun_multihost.py) it is localhost:port and the
     cross-process collectives use the gloo backend.
     """

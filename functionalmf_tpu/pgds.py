@@ -3,7 +3,7 @@ used as a comparison arm and NMF warm-start source (reference
 functionalmf/pgds.py:1-78).
 
 The reference consumes PGDS through the external Cython `apf` package;
-this framework ships its own TPU-native Gibbs sampler
+this framework ships its own JAX Gibbs sampler
 (functionalmf_tpu/models/pgds.py) so the baseline runs everywhere.
 `fit_pgds` keeps the reference wrapper's exact signature and return
 shape; pass backend="apf" to use the original package when installed.

@@ -82,7 +82,7 @@ def resample_tau2_ladder(key, deltas_sq, lam2, tau2, tau2_c, tau2_b, tau2_a,
     # Gamma(1,1) variate IS an Exp(1) variate, so one batched exponential
     # replaces three jax.random.gamma calls — each of those lowers to a
     # rejection while_loop whose latency dominates this whole block at
-    # (ncols, nD) shapes on TPU (the draws only enter through their scale,
+    # (ncols, nD) shapes (the draws only enter through their scale,
     # so the ladder's sequential rate dependence costs nothing).
     # guard the divisor: exponential() can return exactly 0.0 (uniform in
     # [0,1) hits 0 with prob ~2^-23 in f32), which would put an inf in the

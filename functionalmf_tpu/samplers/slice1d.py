@@ -10,7 +10,7 @@ reference's own TODO flags it (factor.py:144-146 "better sampler for
 lam2"). The ASIS move needs an exact 1-D kernel for
 p(x) ∝ prior(x) · lik(scale(x)); slice sampling is tuning-free and exact.
 
-TPU design: the shrink loop is a `lax.while_loop` with a hard iteration
+Design: the shrink loop is a `lax.while_loop` with a hard iteration
 cap — shrinkage halves the bracket in expectation per rejection, so the
 cap is hit with vanishing probability; on the cap the move degrades to
 stay-put (still a valid kernel: it is the slice kernel composed with a

@@ -1,45 +1,50 @@
-"""Persistent XLA compilation cache (VERDICT round-4 item 6).
+"""Persistent XLA compilation cache.
 
-The constrained sweep at GDELT shape takes ~35s to compile and the
-roofline shape ~90s; every bench script, app, and example pays it again on
-each process start. jax ships a persistent compilation cache keyed on the
-HLO — enabling it makes the second process start of any of these ~free.
+The constrained sweep compiles for tens of seconds at production shapes,
+and every benchmark, app and example pays it again on each process start.
+jax's persistent compilation cache is keyed on the HLO, so a second start
+of the same program loads its executables instead of compiling them.
 
-The reference has no equivalent (it compiles nothing); this is part of the
-TPU-native runtime story (SURVEY.md §5 tracing/profiling & config axis).
+Where the cache lives:
 
-Usage (bench/apps call this before the first jit execution)::
+* ``JAX_COMPILATION_CACHE_DIR`` set: jax reads it itself and this module
+  sets no directory.
+* otherwise: one fixed directory inside the checkout, ``<repo>/.jax_cache``
+  (listed in ``.gitignore``). The path is part of what makes a later
+  process find an earlier one's entries, so it is never built from a
+  temporary name, a PID or a time.
+
+Usage (bench/apps call this before the first compile)::
 
     from functionalmf_tpu.utils.cache import enable_compilation_cache
-    enable_compilation_cache()          # ~/.cache/functionalmf_tpu/xla
-    enable_compilation_cache("/tmp/x")  # explicit dir
-
-Env override: FMF_COMPILATION_CACHE_DIR sets the directory,
-FMF_COMPILATION_CACHE=0 disables (e.g. for compile-time measurements).
+    enable_compilation_cache()
 """
 from __future__ import annotations
 
 import os
 
-__all__ = ["enable_compilation_cache"]
+__all__ = ["enable_compilation_cache", "default_cache_dir"]
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "functionalmf_tpu", "xla")
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> str | None:
-    """Point jax's persistent compilation cache at `cache_dir` and lower
-    the min-compile-time/entry-size gates so the many small sweep
-    executables (sub-second CPU test compiles included) are cached too.
-    Returns the directory in effect, or None when disabled via env."""
-    if os.environ.get("FMF_COMPILATION_CACHE", "1") in ("0", "false", ""):
-        return None
-    cache_dir = (cache_dir
-                 or os.environ.get("FMF_COMPILATION_CACHE_DIR")
-                 or _DEFAULT_DIR)
-    os.makedirs(cache_dir, exist_ok=True)
+def default_cache_dir() -> str:
+    """The fixed in-checkout cache directory: ``<repo>/.jax_cache``."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(repo, ".jax_cache")
+
+
+def enable_compilation_cache() -> str:
+    """Turn on jax's persistent compilation cache and lower its
+    min-compile-time/entry-size gates so the many small sweep executables
+    are cached too. Returns the directory in effect."""
     import jax
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    cache_dir = os.environ.get(ENV_VAR)
+    if not cache_dir:
+        cache_dir = default_cache_dir()
+        os.makedirs(cache_dir, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     return cache_dir

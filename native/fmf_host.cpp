@@ -1,8 +1,8 @@
 // Native host-side numerics for functionalmf_tpu.
 //
 // The reference framework leans on native code for its host-side hot loops
-// (CHOLMOD, pypolyagamma, SharedArray; reference setup.py:51). The TPU
-// build moves the device-side numerics to XLA/Pallas; this library covers
+// (CHOLMOD, pypolyagamma, SharedArray; reference setup.py:51). This
+// framework moves the device-side numerics to XLA; this library covers
 // the *host-side* inner loops that remain sequential and Python-bound in
 // the reference: the pool-adjacent-violators projection (reference
 // utils.py:458-492) and the Lawson-Hanson NNLS solver that dominates the

@@ -5,7 +5,7 @@ Scott & Windle (2013, JASA, "Bayesian inference for logistic models using
 Polya-Gamma latent variables", Algorithm 1) — the same construction the
 reference's native pypolyagamma dependency implements in C++
 (reference functionalmf/factor.py:458-460). Used as the distributional
-ground truth for KS tests of the framework's TPU sampler
+ground truth for KS tests of the framework's device sampler
 (functionalmf_tpu/ops/polyagamma.py); never imported by library code.
 
 PG(1, c) = J*(1, c/2) / 4 where J* is the Jacobi variable sampled below.

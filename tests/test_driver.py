@@ -1,4 +1,4 @@
-"""Gibbs-driver mechanics added in round 5: the RPC-limit guard for
+"""Gibbs-driver mechanics added in round 5: the long-call guard for
 nthin > max_sweeps_per_call (VERDICT round-4 item 8), split-R-hat in the
 results dict (item 7), the one-shot profiler capture (item 9), and the
 float16 data-storage option (memory-bound optimization pass, item 3)."""
@@ -28,7 +28,7 @@ def test_nthin_exceeding_chunk_limit_is_stream_identical(rng):
     """nthin > max_sweeps_per_call splits each thin interval into chunks;
     because draw streams key on the ABSOLUTE sweep offset, the collected
     draws must be bit-identical to the unchunked run (previously a single
-    device call silently executed nthin sweeps, violating the RPC-limit
+    device call silently executed nthin sweeps, violating the long-call
     invariant — models/base.py:run_gibbs)."""
     Y = _gauss_data(rng)
     res = {}

@@ -303,7 +303,6 @@ def test_cellfn_only_redblack_matches_sequential(rng):
             loglikelihood_cellfn=poisson_cellfn)
         assert mod.loglikelihood_cells is not None   # derived
         assert mod.loglikelihood_block is not None   # derived
-        assert not mod.fuse_cells                    # fusion stays opt-in
         r = mod.run_gibbs(Y, nburn=600, nthin=1, nsamples=600,
                           verbose=False)
         mu = np.einsum("znk,zmtk->znmt", r["W"], r["V"])
@@ -313,10 +312,3 @@ def test_cellfn_only_redblack_matches_sequential(rng):
            / np.sqrt((Mu ** 2).mean()))
     assert rel < 0.12, rel
 
-
-def test_fuse_cells_requires_cellfn():
-    _, _, _, _, C, W0, V0 = _toy()
-    with pytest.raises(ValueError, match="fuse_cells"):
-        ConstrainedNonconjugateBayesianTensorFiltering(
-            N_, M_, T_, poisson_loglik, C, nembeds=NE,
-            W_init=W0, V_init=V0, fuse_cells=True)

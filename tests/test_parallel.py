@@ -1,4 +1,6 @@
 """Multi-chain + mesh sharding tests on the virtual 8-device CPU mesh."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -189,7 +191,8 @@ def test_constrained_long_run_under_mesh(rng):
 def test_graft_entry_hooks():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "graft_entry", "/root/repo/__graft_entry__.py")
+        "graft_entry", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "__graft_entry__.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     fn, args = mod.entry()

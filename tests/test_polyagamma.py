@@ -42,7 +42,7 @@ def test_pg_symmetric_in_c(key):
 def test_pg_var_small_c_f32():
     """Regression: pg_var must stay accurate (and nonnegative) through the
     sinh(c) - c cancellation zone in f32. The naive form lost all bits
-    below |c| ~ 0.01 and went *negative* on TPU, NaN-ing the large-b
+    below |c| ~ 0.01 and went *negative* on an accelerator, NaN-ing the large-b
     normal-approximation draw and silently freezing Binomial/NegBinom
     chains behind the nan_guard (round-2 diagnosis of VERDICT item 10)."""
     cs = np.concatenate([np.logspace(-6, 1, 200), -np.logspace(-6, 1, 200),
